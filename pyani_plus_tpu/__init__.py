@@ -1,18 +1,18 @@
-"""pyANI-plus-TPU: a TPU-native all-vs-all Average Nucleotide Identity engine.
+"""pyANI-plus-TPU: an accelerator-native all-vs-all Average Nucleotide Identity engine.
 
 A ground-up reimplementation of the capabilities of ``pyani-plus`` (the
-reference CLI/library at /root/reference) designed for TPU hardware: the
+reference CLI/library) whose device path runs on an NVIDIA GPU: the
 numeric kernels that the reference delegates to external native binaries
 (nucmer, blastn, fastANI, minimap2, skani, sourmash/branchwater) are
-implemented here as JAX/XLA/Pallas programs over 2-bit packed genome arrays,
-and the Snakemake/SQLite orchestration is replaced by a sharded pairwise-tile
-scheduler over a ``jax.sharding.Mesh``.
+implemented here as JAX/XLA programs, CUDA and C++ kernels over packed
+genome arrays, and the Snakemake/SQLite orchestration is replaced by a
+sharded pairwise-tile scheduler over a ``jax.sharding.Mesh``.
 
 Layout (see README.md):
 
 - ``utils/``    -- FASTA parsing, MD5 identity, staging (ref: pyani_plus/utils.py)
 - ``genomes/``  -- genome ingestion + 2-bit packed device representation
-- ``ops/``      -- the JAX/Pallas compute kernels (hashing, sketching, DP, ...)
+- ``ops/``      -- the JAX and GPU compute kernels (hashing, sketching, DP, ...)
 - ``methods/``  -- the eight ANI "model families" (scoring math per method)
 - ``parallel/`` -- device-mesh tile scheduler + collectives merge
 - ``db/``       -- content-addressed result store (SQLite, resume semantics)

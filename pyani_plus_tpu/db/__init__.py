@@ -21,6 +21,7 @@ are shared between runs and never recomputed -- the DB is the checkpoint
 from __future__ import annotations
 
 import datetime
+import json
 import logging
 import random
 import sqlite3
@@ -95,6 +96,41 @@ CREATE TABLE IF NOT EXISTS runs_genomes (
 """
 
 _ATTEMPTS = 3  # retry/backoff like db_orm.py:660-702 (NFS-locked SQLite)
+
+
+def _json_float(v: float) -> str:
+    """One float as pandas' ``to_json(double_precision=15)`` writes it:
+    15 decimals, trailing zeros trimmed, %.15g outside [1e-15, 1e16),
+    NaN as null."""
+    if v != v or v in (float("inf"), float("-inf")):
+        return "null"
+    sign = "-" if v < 0 else ""
+    a = -v if v < 0 else v
+    if a > 1e16 - 1 or (a != 0.0 and a < 1e-15):
+        return sign + format(a, ".15g")
+    whole = int(a)
+    tmp = (a - whole) * 1e15
+    frac = int(tmp)
+    diff = tmp - frac
+    if diff > 0.5 or (diff == 0.5 and frac & 1):  # round half to even
+        frac += 1
+        if frac >= 10**15:
+            frac = 0
+            whole += 1
+    if frac == 0:
+        return f"{sign}{whole}.0"
+    return f"{sign}{whole}." + f"{frac:015d}".rstrip("0")
+
+
+def matrix_json(matrix: np.ndarray, labels: list[str]) -> str:
+    """A square matrix as pandas ``DataFrame.to_json(orient="split",
+    double_precision=15)`` text, written with the stdlib alone (the run
+    path must not need pandas; reporting reads it back with pandas)."""
+    names = json.dumps(list(labels), separators=(",", ":"))
+    rows = ",".join(
+        "[" + ",".join(map(_json_float, row)) + "]" for row in matrix.tolist()
+    )
+    return f'{{"columns":{names},"index":{names},"data":[{rows}]}}'
 
 
 @dataclass
@@ -222,8 +258,6 @@ class Run:
         10^6 comparison rows, and a per-row Python loop costs ~8 s where
         the pandas map + fancy-index assignment is ~2 s.
         """
-        import pandas as pd
-
         hashes = self.genome_hashes
         size = len(hashes)
         index = {h: i for i, h in enumerate(hashes)}
@@ -270,12 +304,7 @@ class Run:
             sim_errors[rows, cols] = arr[:, 5]
 
         def to_json(matrix: np.ndarray) -> str:
-            # double_precision=15 keeps full float64 round-trip fidelity
-            # (the reference's default-10 truncation is also within the
-            # 2e-8 test tolerance, but exactness is free here).
-            return pd.DataFrame(
-                data=matrix, index=hashes, columns=hashes, dtype=float
-            ).to_json(orient="split", double_precision=15)
+            return matrix_json(matrix, hashes)
 
         self._df["identity"] = to_json(identity)
         self._df["cov_query"] = to_json(cov_query)

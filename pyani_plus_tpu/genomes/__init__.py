@@ -12,7 +12,7 @@ numerics-ready genome objects:
 - genome-level metadata (length, description) mirrors the reference's
   ``Genome`` ORM row (db_orm.py:103-145).
 
-The packed arrays feed the JAX/Pallas kernels in ``pyani_plus_tpu.ops``.
+The packed arrays feed the JAX and GPU kernels in ``pyani_plus_tpu.ops``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The ANI method registry: the framework's "model families".
 
 Each method module implements one of the reference's eight comparison
-methods (SURVEY.md section 2.3) as a TPU-native compute path. A method
+methods (SURVEY.md section 2.3) as an accelerator-native compute path. A method
 exposes:
 
 - ``NAME``                      -- the method string stored in configurations

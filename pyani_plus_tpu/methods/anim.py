@@ -1,7 +1,7 @@
 """ANIm: whole-genome alignment ANI (nucmer/MUMmer-equivalent).
 
 Replaces ``nucmer --mum`` + ``delta-filter -1`` (reference invocation
-private_cli.py:1194-1224) with a TPU-native seed-chain-extend pipeline:
+private_cli.py:1194-1224) with a seed-chain-extend pipeline:
 
 1. maximal unique matches (unique in both sequences, length >= 20) on
    both strands via suffix array (ops/suffix.py) -- nucmer's --mum
@@ -149,20 +149,12 @@ def _chain_and_fill(
 
 EXT_BAND = 60  # extend_errors' band; device lanes share it (extend.py:234)
 EXT_BREAKLEN = 200
-# Default minimum batch for the Pallas device extension path when a TPU
-# backend is live (ops/extend_pallas.py: bit-exact, ~18x the host kernel
-# per lane at realistic sizes). Below this, host dispatch overhead wins.
-# On CPU backends the host C++ kernel is the production path (Pallas
-# interpret mode is for parity tests only). PYANI_TPU_EXTEND_BATCH_MIN
-# overrides (small values force the device path in tests).
-EXT_BATCH_MIN_TPU = 64
-EXT_BATCH_MIN = 1 << 30  # non-TPU default: host kernel
-
-
-def _default_ext_batch_min() -> int:
-    from pyani_plus_tpu.ops.extend_pallas import _is_tpu_backend
-
-    return EXT_BATCH_MIN_TPU if _is_tpu_backend() else EXT_BATCH_MIN
+# Minimum batch for the GPU extension kernel (ops/extend_gpu.py, bit-exact
+# with the host kernel) when a GPU is live; smaller batches run on the
+# threaded host kernel. On an H100 the kernel beat the host from the
+# smallest batches measured (4-15 tasks of a 5 Mb ANIm column, PERF.md).
+# PYANI_TPU_EXTEND_BATCH_MIN overrides it.
+EXT_GPU_BATCH_MIN = 4
 
 
 def _extension_tasks(
@@ -188,17 +180,20 @@ def _extension_tasks(
 
 def _run_extensions(
     tasks: list[tuple[np.ndarray, np.ndarray]],
+    *,
+    executor=None,
 ) -> list[tuple[int, int, int, int, int]]:
-    """Batch free-end extensions: Pallas device lanes when a TPU is live
-    and the batch is large, per-task native kernel otherwise.
-    Bit-identical either way (ops/extend_pallas.py parity contract)."""
+    """Batch free-end extensions: the GPU kernel when a GPU is live and
+    the batch is large, the per-task host kernel otherwise. An explicit
+    ``executor`` (ops/extend_gpu.py) sends every eligible task through
+    the batched wrapper. Bit-identical either way."""
     import os
+
+    from pyani_plus_tpu.device import gpu_available
 
     device_idx: list[int] = []
     device_tasks: list[tuple[np.ndarray, np.ndarray]] = []
     results: list[tuple[int, int, int, int, int] | None] = [None] * len(tasks)
-    env_min = os.environ.get("PYANI_TPU_EXTEND_BATCH_MIN")
-    min_batch = int(env_min) if env_min else _default_ext_batch_min()
     for idx, (a, b) in enumerate(tasks):
         if a.size and b.size:
             limit = min(a.size, b.size) + EXT_BREAKLEN
@@ -206,12 +201,19 @@ def _run_extensions(
             if max(a_t.size, b_t.size) >= EXT_BAND:
                 device_idx.append(idx)
                 device_tasks.append((a_t, b_t))
-    if len(device_tasks) >= min_batch:
-        from pyani_plus_tpu.ops.extend_pallas import batch_extend_pallas
+    if executor is None and gpu_available():
+        env_min = os.environ.get("PYANI_TPU_EXTEND_BATCH_MIN")
+        on_device = len(device_tasks) >= int(env_min or EXT_GPU_BATCH_MIN)
+    else:
+        on_device = executor is not None
+    if on_device:
+        from pyani_plus_tpu.ops.extend_gpu import batch_extend
 
         for idx, res in zip(
             device_idx,
-            batch_extend_pallas(device_tasks, stop_rows=3 * EXT_BREAKLEN),
+            batch_extend(
+                device_tasks, stop_rows=3 * EXT_BREAKLEN, executor=executor
+            ),
         ):
             results[idx] = res
     host_idx = [idx for idx in range(len(tasks)) if results[idx] is None]

@@ -1,4 +1,4 @@
-"""fastANI-mode ANI: fragment minimizer-mapping (TPU-native).
+"""fastANI-mode ANI: fragment minimizer-mapping.
 
 Replaces the fastANI binary (invocation: private_cli.py:1029-1063 in the
 reference). Per (query, subject) pair:

@@ -1,4 +1,4 @@
-"""sourmash-mode ANI: FracMinHash containment (TPU-native).
+"""sourmash-mode ANI: FracMinHash containment.
 
 Replaces the reference's shell-outs to ``sourmash scripts singlesketch`` /
 ``sig collect`` / branchwater ``manysearch`` (methods/sourmash.py:34-206)

@@ -1,15 +1,21 @@
-"""Native (C++) host-side kernels, loaded via ctypes with lazy build.
+"""Native (C++/CUDA) kernels, loaded via ctypes with lazy build.
 
-The TPU owns the scoring math; these cover host-bound ingestion hot
-loops (sketch hashing). Build happens on first use with g++ and is
-cached next to the sources; absence of a compiler degrades gracefully
-to the numpy implementations.
+The host kernels cover ingestion and alignment hot loops (sketch
+hashing, seeding, banded DPs); ``build_cuda`` compiles the GPU
+extension kernel (band_extend.cu) that ops/extend_gpu.py calls through
+the XLA FFI. Every library is built on first use from the tracked
+source beside this file into ``_build/`` (gitignored), under a name
+keyed on the source's content, the compiler flags and the host CPU, so
+a library built on another machine or from an older source is never
+loaded. A missing host compiler degrades to the numpy implementations.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -17,33 +23,106 @@ from pathlib import Path
 import numpy as np
 
 _DIR = Path(__file__).parent
-_SO = _DIR / "libsketch.so"
+BUILD_DIR = _DIR / "_build"
 _SRC = _DIR / "sketch.cpp"
-_ALIGN_SO = _DIR / "libalign.so"
 _ALIGN_SRC = _DIR / "align.cpp"
-_SUFFIX_SO = _DIR / "libsuffix.so"
 _SUFFIX_SRC = _DIR / "suffix.cpp"
-_BAND_SO = _DIR / "libband.so"
 _BAND_SRC = _DIR / "band.cpp"
-_CHAIN_SO = _DIR / "libchain.so"
 _CHAIN_SRC = _DIR / "chain.cpp"
+BAND_EXTEND_CU = _DIR / "band_extend.cu"  # GPU kernel, ops/extend_gpu.py
 
 _lib = None
 _tried = False
 _align_lib = None
 _align_tried = False
 
+_HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# Tuned codegen is worth ~2.7x on the murmur sketch loop; portable flags
+# are the fallback when the toolchain rejects them.
+_FAST_FLAGS = ("-march=native", "-funroll-loops")
+_host_cpu: str | None = None
+_BUILD_LOCK = threading.Lock()
 
-def _build(src: Path, so: Path) -> None:
-    if not so.is_file() or so.stat().st_mtime < src.stat().st_mtime:
-        base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o", str(so)]
-        # Tuned codegen is worth ~2.7x on the murmur sketch loop on this
-        # host; fall back to portable flags if the toolchain rejects it.
-        fast = base[:2] + ["-march=native", "-funroll-loops"] + base[2:]
+
+def host_cpu_signature() -> str:
+    """What ``-march=native`` resolves to on this host (plus the arch).
+
+    g++ reports the target options it would enable, which is exactly what
+    makes a natively tuned library unsafe on another CPU."""
+    global _host_cpu
+    if _host_cpu is None:
+        import platform
+
         try:
-            subprocess.run(fast, check=True, capture_output=True)
+            target = subprocess.run(
+                ["g++", "-march=native", "-Q", "--help=target"],
+                check=True, capture_output=True, text=True,
+            ).stdout
         except (subprocess.CalledProcessError, OSError):
-            subprocess.run(base, check=True, capture_output=True)
+            target = ""
+        _host_cpu = platform.machine() + "\n" + target
+    return _host_cpu
+
+
+def library_path(src: Path, flags: tuple[str, ...], compiler: str) -> Path:
+    """Keyed location of the library built from ``src`` with ``flags``."""
+    h = hashlib.sha256()
+    for part in (src.read_bytes(), compiler.encode(), " ".join(flags).encode(),
+                 host_cpu_signature().encode()):
+        h.update(part)
+        h.update(b"\0")
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(cmd: list[str], out: Path) -> None:
+    """Run one compile into a private temp file, then publish atomically
+    (concurrent first users may race to build the same library)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run([*cmd, "-o", str(tmp)], check=True, capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def _build(src: Path) -> Path:
+    """Path of a loadable host library for ``src``, building it if needed."""
+    with _BUILD_LOCK:
+        fast = _HOST_FLAGS + _FAST_FLAGS
+        so = library_path(src, fast, "g++")
+        if so.is_file():
+            return so
+        try:
+            _compile(["g++", *fast, str(src)], so)
+            return so
+        except (subprocess.CalledProcessError, OSError):
+            so = library_path(src, _HOST_FLAGS, "g++")
+            if not so.is_file():
+                _compile(["g++", *_HOST_FLAGS, str(src)], so)
+            return so
+
+
+def build_cuda(src: Path, include_dirs: tuple[str, ...] = ()) -> Path:
+    """Path of the Hopper (sm_90a) library built from ``src`` with
+    ``$CUDA_HOME/bin/nvcc`` (default /usr/local/cuda).
+
+    Raises on failure: on a GPU there is no silent fallback."""
+    flags = (
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC",
+        *(f"-I{d}" for d in include_dirs),
+    )
+    nvcc = str(Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "nvcc")
+    with _BUILD_LOCK:
+        so = library_path(src, flags, nvcc)
+        if not so.is_file():
+            try:
+                _compile([nvcc, *flags, str(src)], so)
+            except subprocess.CalledProcessError as exc:
+                msg = f"nvcc failed on {src.name}:\n{exc.stderr.decode(errors='replace')}"
+                raise RuntimeError(msg) from exc
+        return so
 
 
 def _load():
@@ -52,8 +131,7 @@ def _load():
         return _lib
     _tried = True
     try:
-        _build(_SRC, _SO)
-        lib = ctypes.CDLL(str(_SO))
+        lib = ctypes.CDLL(str(_build(_SRC)))
         lib.sketch_codes.restype = ctypes.c_int64
         lib.sketch_codes.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
@@ -131,8 +209,7 @@ def _load_align():
         return _align_lib
     _align_tried = True
     try:
-        _build(_ALIGN_SRC, _ALIGN_SO)
-        lib = ctypes.CDLL(str(_ALIGN_SO))
+        lib = ctypes.CDLL(str(_build(_ALIGN_SRC)))
         lib.local_align_stats.restype = ctypes.c_int
         lib.local_align_stats.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
@@ -217,7 +294,6 @@ def local_align_score_native(  # noqa: PLR0913
     )
 
 
-_SEEDJOIN_SO = _DIR / "libseedjoin.so"
 _SEEDJOIN_SRC = _DIR / "seedjoin.cpp"
 _seedjoin_lib = None
 _seedjoin_tried = False
@@ -229,8 +305,7 @@ def _load_seedjoin():
         return _seedjoin_lib
     _seedjoin_tried = True
     try:
-        _build(_SEEDJOIN_SRC, _SEEDJOIN_SO)
-        lib = ctypes.CDLL(str(_SEEDJOIN_SO))
+        lib = ctypes.CDLL(str(_build(_SEEDJOIN_SRC)))
         p64 = ctypes.POINTER(ctypes.c_int64)
         lib.seed_join_count_sorted.restype = ctypes.c_int64
         lib.seed_join_count_sorted.argtypes = [
@@ -341,8 +416,7 @@ def _load_suffix():
         return _suffix_lib
     _suffix_tried = True
     try:
-        _build(_SUFFIX_SRC, _SUFFIX_SO)
-        lib = ctypes.CDLL(str(_SUFFIX_SO))
+        lib = ctypes.CDLL(str(_build(_SUFFIX_SRC)))
         lib.kasai_lcp.restype = None
         lib.kasai_lcp.argtypes = [
             ctypes.POINTER(ctypes.c_int64),
@@ -535,8 +609,7 @@ def _load_band():
         return _band_lib
     _band_tried = True
     try:
-        _build(_BAND_SRC, _BAND_SO)
-        lib = ctypes.CDLL(str(_BAND_SO))
+        lib = ctypes.CDLL(str(_build(_BAND_SRC)))
         lib.band_affine.restype = None
         lib.band_affine.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
@@ -610,7 +683,6 @@ def suffix_array_native(text: np.ndarray):
     return sa
 
 
-_MM2_SO = _DIR / "libmm2.so"
 _MM2_SRC = _DIR / "mm2.cpp"
 _mm2_lib = None
 _mm2_tried = False
@@ -622,8 +694,7 @@ def _load_mm2():
         return _mm2_lib
     _mm2_tried = True
     try:
-        _build(_MM2_SRC, _MM2_SO)
-        lib = ctypes.CDLL(str(_MM2_SO))
+        lib = ctypes.CDLL(str(_build(_MM2_SRC)))
         lib.mm2_sketch.restype = ctypes.c_int64
         lib.mm2_sketch.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
@@ -783,7 +854,6 @@ def mm2_backtrack_native(
     ]
 
 
-_FASTANI_SO = _DIR / "libfastani.so"
 _FASTANI_SRC = _DIR / "fastani.cpp"
 _fastani_lib = None
 _fastani_tried = False
@@ -795,8 +865,7 @@ def _load_fastani():
         return _fastani_lib
     _fastani_tried = True
     try:
-        _build(_FASTANI_SRC, _FASTANI_SO)
-        lib = ctypes.CDLL(str(_FASTANI_SO))
+        lib = ctypes.CDLL(str(_build(_FASTANI_SRC)))
         lib.fastani_eval_region.restype = None
         lib.fastani_eval_region.argtypes = [
             ctypes.POINTER(ctypes.c_uint64),
@@ -1054,8 +1123,7 @@ def _load_chain():
         return _chain_lib
     _chain_tried = True
     try:
-        _build(_CHAIN_SRC, _CHAIN_SO)
-        lib = ctypes.CDLL(str(_CHAIN_SO))
+        lib = ctypes.CDLL(str(_build(_CHAIN_SRC)))
         i64p = ctypes.POINTER(ctypes.c_int64)
         f64p = ctypes.POINTER(ctypes.c_double)
         lib.cluster_roots.restype = None

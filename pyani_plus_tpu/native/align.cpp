@@ -17,7 +17,7 @@
 // matrix-walk in ops/dp.py performs, which the fuzz parity tests pin.
 //
 // Used by the ANIb method for per-fragment best-HSP statistics once the
-// TPU batch DP has picked the winning window.
+// device batch DP has picked the winning window.
 //
 // Build: g++ -O3 -march=native -shared -fPIC align.cpp -o libalign.so
 

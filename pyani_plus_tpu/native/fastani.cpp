@@ -1,7 +1,7 @@
 // Native host-side kernels for the fastANI-mode mapping core.
 //
 // Replaces the two numpy hot paths of ops/fastani_map.py / ops/minimizers.py
-// (the TPU-native stand-in for the fastANI binary's vendored MashMap2,
+// (the stand-in for the fastANI binary's vendored MashMap2,
 // SURVEY.md section 2.2 row fastANI):
 //
 //  1. fastani_winnow -- MashMap-style winnowed minimizer extraction

@@ -1,4 +1,4 @@
-"""Numeric kernels: the TPU-native replacements for the reference's tools.
+"""Numeric kernels: the accelerator-native replacements for the reference's tools.
 
 Each module here replaces one class of external native binary that the
 reference shells out to (SURVEY.md section 2.2):

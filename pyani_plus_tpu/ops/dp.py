@@ -13,7 +13,7 @@ gap immediately following a gap in the same direction is never optimal:
     G[j] = max(0, diag[j], F[j])
 
 so each row is a handful of vector ops -- the same shape used by the
-JAX/Pallas batched kernel (anti-diagonal-free, scan over query rows with
+JAX batched kernel in ops/dp_jax.py (anti-diagonal-free, scan over query rows with
 length-n row vectors; cummax = associative max scan).
 """
 

@@ -1,6 +1,6 @@
 """Fragment-to-genome mapping via winnowed MinHash (fastANI/MashMap core).
 
-TPU-native replacement for the fastANI binary (SURVEY.md section 2.2).
+Replacement for the fastANI binary (SURVEY.md section 2.2).
 Each 3 kb query fragment is sketched with winnowed minimizers (k=16,
 w=24) and mapped against the reference genome's minimizer index; the
 Jaccard similarity of the fragment A vs the reference substring starting
@@ -36,7 +36,7 @@ its J dips below 1 where the exact window maximum cannot).
 
 The per-candidate-region evaluation is a dense (events x hash-domain)
 membership computation -- interval scatter, cumsum, rank reductions --
-the exact shape that vectorises onto TPU; numpy is the host path.
+the shape that vectorises onto an accelerator; numpy is the host path.
 """
 
 from __future__ import annotations

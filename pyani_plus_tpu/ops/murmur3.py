@@ -12,7 +12,7 @@ Two implementations with identical outputs:
 - :func:`murmur64_numpy` -- host numpy, uint64 modular arithmetic; the
   correctness oracle and the default for host-side sketching.
 - :func:`murmur64_jax`   -- JAX, written as (hi, lo) uint32 pairs so it runs
-  on TPU without 64-bit hardware support; jit/vmap friendly. Used by the
+  without 64-bit integer types; jit/vmap friendly. Used by the
   device sketching path.
 
 MurmurHash3 is public domain (Austin Appleby).
@@ -129,7 +129,7 @@ def murmur64_numpy(data: np.ndarray, seed: int = 42) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JAX implementation via (hi, lo) uint32 pairs -- runs on TPU without x64.
+# JAX implementation via (hi, lo) uint32 pairs -- runs without jax x64.
 # ---------------------------------------------------------------------------
 
 
@@ -211,7 +211,7 @@ def murmur64_jax(data, seed: int = 42):
     """JAX version of :func:`murmur64_numpy` over an (N, L) uint8 array.
 
     Returns a pair of (N,) uint32 arrays ``(hi, lo)`` holding the 64-bit
-    hash split into high/low words (TPU has no native uint64).
+    hash split into high/low words (no uint64 without jax x64).
     """
     jnp, mk, add64, xor64, mul64, rotl64, shr64 = _jax_ops()
     c1 = mk(0x87C37B91114253D5)

@@ -1,4 +1,4 @@
-"""Run orchestration: the TPU-native replacement for Snakemake + SLURM.
+"""Run orchestration: the replacement for Snakemake + SLURM.
 
 The reference splits the N x N comparison matrix into N column jobs
 dispatched as subprocesses or SLURM jobs coordinated through a shared

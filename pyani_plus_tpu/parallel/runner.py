@@ -137,6 +137,36 @@ def _setup_run(  # noqa: PLR0913
     )
 
 
+def _progress_bar(label: str, total: int):
+    """(context manager, advance callback) for a live progress bar.
+
+    The reference's Rich progress columns (__init__.py:50-58; progress
+    there is polled from the DB by a separate process -- here the
+    methods tick the context directly). Without ``rich`` the run goes on
+    with no bar: the compute path needs only numpy, scipy and JAX.
+    """
+    try:
+        from rich.progress import (
+            BarColumn,
+            MofNCompleteColumn,
+            Progress,
+            SpinnerColumn,
+            TimeElapsedColumn,
+        )
+    except ImportError:
+        return contextlib.nullcontext(), lambda _n: None
+    progress = Progress(
+        SpinnerColumn(),
+        "[progress.description]{task.description}",
+        BarColumn(),
+        MofNCompleteColumn(),
+        TimeElapsedColumn(),
+        transient=True,
+    )
+    task_id = progress.add_task(label, total=total)
+    return progress, lambda n: progress.advance(task_id, n)
+
+
 @contextlib.contextmanager
 def _defer_interrupts(logger: logging.Logger):
     """Queue SIGINT/SIGTERM for the duration of run finalisation.
@@ -304,29 +334,8 @@ def resume_run(  # noqa: PLR0913, C901
                 )
                 logger.debug("Flushed %d comparisons", len(rows))
 
-            # Live progress over the pending pairs (the reference's Rich
-            # progress columns, __init__.py:50-58; progress there is
-            # polled from the DB by a separate process -- here the
-            # methods tick the context directly, no polling needed).
-            from rich.progress import (
-                BarColumn,
-                MofNCompleteColumn,
-                Progress,
-                SpinnerColumn,
-                TimeElapsedColumn,
-            )
-
-            progress = Progress(
-                SpinnerColumn(),
-                "[progress.description]{task.description}",
-                BarColumn(),
-                MofNCompleteColumn(),
-                TimeElapsedColumn(),
-                transient=True,
-            )
-            task_id = progress.add_task(
-                f"{config.get('method', 'ANI')} comparisons",
-                total=len(pending),
+            progress, advance = _progress_bar(
+                f"{config.get('method', 'ANI')} comparisons", len(pending)
             )
 
             ctx = ComputeContext(
@@ -338,7 +347,7 @@ def resume_run(  # noqa: PLR0913, C901
                 config=config,
                 cache=cache,
                 extra_files=extra_files or {},
-                progress=lambda n: progress.advance(task_id, n),
+                progress=advance,
                 flush=flush,
             )
             # Real profiling (the reference has none -- SURVEY.md
@@ -365,7 +374,7 @@ def resume_run(  # noqa: PLR0913, C901
         interrupted = interrupted or (ctx is not None and ctx.interrupted)
 
     if collective:
-        # Collective result merge (ICI/DCN all-gather) replaces the
+        # Collective result merge (a device all-gather) replaces the
         # reference's polled JSON import; every host receives the union
         # so host 0's store ends complete even when workers used private
         # databases. EVERY host joins, including those with no pending

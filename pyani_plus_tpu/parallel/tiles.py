@@ -1,13 +1,14 @@
-"""Device-mesh pair-tile sharding: the N x N comparison grid on TPU.
+"""Device-mesh pair-tile sharding: the N x N comparison grid on the cards.
 
-The TPU-native replacement for the reference's column sharding over
+The replacement for the reference's column sharding over
 Snakemake jobs (SURVEY.md section 2.4): the all-vs-all grid is tiled
 over a ``jax.sharding.Mesh`` with a 2D ("q", "s") layout -- query
 genomes sharded along "q", subject genomes along "s" -- so each device
 owns an (N/q x N/s) tile of the pair grid. Sketch membership blocks are
 laid out so the contraction (hash) axis streams in full while the
-genome axes ride the mesh; XLA inserts the (ICI) collectives from the
-shardings.
+genome axes ride the mesh; XLA inserts the collectives (NCCL over
+NVLink on GPUs) from the shardings. The cards of one host reach each
+other all to all, so the mesh shape follows the algorithm alone.
 
 These entry points are also what ``__graft_entry__.dryrun_multichip``
 compiles on a virtual device mesh to validate the multi-chip path.
@@ -46,7 +47,7 @@ def default_pair_mesh():
 
     Every multi-device host automatically shards the pair-grid kernels
     (sourmash containment Gram, batched DP dispatch) over this mesh --
-    the TPU-native analogue of the reference's local executor using all
+    the analogue of the reference's local executor using all
     cores (workflows/__init__.py:158-171). ``PYANI_TPU_MESH=0`` forces
     single-device execution.
     """
@@ -83,7 +84,7 @@ def sharded_intersection_counts(membership: np.ndarray, mesh) -> np.ndarray:
 
     ``membership`` is the (N, U) {0,1} sketch membership matrix (int8).
     Rows are sharded along "q" for the left operand and along "s" for
-    the right operand; each device MXU computes its local (Nq x Ns)
+    the right operand; each device computes its local (Nq x Ns)
     Gram tile -- no all-gather of the full matrix is ever materialised,
     only the two row-block layouts. Returns the (N, N) counts.
     """
@@ -142,7 +143,7 @@ def sharded_containment_step(mesh):
 
 
 def merge_partial_matrices(blocks: np.ndarray, mesh) -> np.ndarray:
-    """Collectively merge per-device partial result matrices (ICI psum).
+    """Collectively merge per-device partial result matrices (psum).
 
     ``blocks`` is (n_devices, N, N): device d's zero-masked partial of
     the full result matrix (its owned pair tiles filled, the rest 0).

@@ -177,44 +177,3 @@ def test_device_pipeline_matches_host_path(viral, monkeypatch) -> None:
     # group=2 exercises the cross-group pipeline (several groups per
     # subject column) including the trailing-group drain
     assert run("1", "2") == run("0", "1")
-
-
-def test_pallas_sw_scores_match_host(monkeypatch) -> None:
-    """The Pallas SW kernel (interpret mode, small geometry) returns the
-    native host kernel's scores exactly -- random pairs incl. N runs,
-    pad-code tails, and related sequences with indels."""
-    import numpy as np
-
-    from pyani_plus_tpu.native import local_align_score_native
-    from pyani_plus_tpu.ops import sw_pallas
-
-    rng = np.random.default_rng(5)
-    mc, nc = 128, 256
-    cases = []
-    for trial in range(24):
-        m = int(rng.integers(1, mc + 1))
-        n = int(rng.integers(1, nc + 1))
-        hi = 5 if trial % 3 else 4
-        q = rng.integers(0, hi, m).astype(np.uint8)
-        s = rng.integers(0, hi, n).astype(np.uint8)
-        if trial % 4 == 0 and n > m:
-            # related: embed a mutated copy for realistic score paths
-            s[:m] = q
-            mut = rng.random(m) < 0.2
-            s[:m][mut] = (s[:m][mut] + rng.integers(1, 4, int(mut.sum()))) % 4
-        cases.append((q, s))
-    B = len(cases)
-    qs = np.full((B, mc), sw_pallas.PAD_CODE, np.uint8)
-    ss = np.full((B, nc), sw_pallas.PAD_CODE, np.uint8)
-    for i, (q, s) in enumerate(cases):
-        qs[i, : q.size] = q
-        ss[i, : s.size] = s
-    got = np.asarray(
-        sw_pallas.batch_sw_scores_pallas(
-            qs, ss, interpret=True, m_cols=mc, n_cols=nc
-        )
-    )
-    for i, (q, s) in enumerate(cases):
-        want = local_align_score_native(q, s, 2, -3, 5, 2)
-        assert want is not None
-        assert int(got[i]) == int(want), (i, int(got[i]), int(want))

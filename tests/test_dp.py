@@ -61,23 +61,11 @@ def test_jax_score_parity() -> None:
         assert jax_scores[i] == expected, i
 
 
-def test_batch_extend_device_parity() -> None:
-    """Batched free-end extension lanes match the native kernel bit-for-bit.
-
-    Covers the give-up rule, N codes, uneven lane lengths, and lane/row
-    padding (ops/extend_jax.py exactness contract).
-    """
-    import numpy as np
-
-    from pyani_plus_tpu.native import band_dp_native
-    from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, OPEN
-    from pyani_plus_tpu.ops.extend_jax import batch_extend_errors
-
-    rng = np.random.default_rng(23)
+def _extension_tasks(rng, count: int, lo: int = 60, hi: int = 1200):
     tasks = []
-    for _ in range(24):
-        m = int(rng.integers(60, 1200))
-        n = int(rng.integers(60, 1200))
+    for _ in range(count):
+        m = int(rng.integers(lo, hi))
+        n = int(rng.integers(lo, hi))
         a = rng.integers(0, 5, m).astype(np.uint8)
         b = rng.integers(0, 4, n).astype(np.uint8)
         if rng.random() < 0.6:
@@ -86,36 +74,20 @@ def test_batch_extend_device_parity() -> None:
             mut = rng.random(span) < 0.1
             b[:span][mut] = (b[:span][mut] + 1) % 4
         tasks.append((a, b))
-    got = batch_extend_errors(tasks, stop_rows=600)
-    for idx, (a, b) in enumerate(tasks):
-        i, j, _score, err, nid, gap = band_dp_native(
-            a, b, 60, True, MATCH, MISMATCH, OPEN, EXTEND, 600
-        )
-        assert tuple(got[idx]) == (i, j, err, nid, gap)
+    return tasks
 
 
-def test_batch_extend_pallas_parity() -> None:
-    """The Pallas kernel (interpret mode on CPU) matches the native
-    kernel bit-for-bit: give-up rule, N codes, uneven lanes, padding,
-    and the associative-scan I-state closure's tie rules."""
+def test_batch_extend_wrapper_parity() -> None:
+    """The GPU kernel's wrapper (task sorting, packing, lane padding,
+    result order), driven here by the host executor over the same packed
+    buffers, matches the native kernel bit-for-bit: give-up rule, N
+    codes, uneven lanes."""
     from pyani_plus_tpu.native import band_dp_native
     from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, OPEN
-    from pyani_plus_tpu.ops.extend_pallas import batch_extend_pallas
+    from pyani_plus_tpu.ops.extend_gpu import batch_extend, host_executor
 
-    rng = np.random.default_rng(41)
-    tasks = []
-    for _ in range(20):
-        m = int(rng.integers(60, 1100))
-        n = int(rng.integers(60, 1100))
-        a = rng.integers(0, 5, m).astype(np.uint8)
-        b = rng.integers(0, 4, n).astype(np.uint8)
-        if rng.random() < 0.6:
-            span = min(m, n)
-            b[:span] = a[:span] % 4
-            mut = rng.random(span) < 0.1
-            b[:span][mut] = (b[:span][mut] + 1) % 4
-        tasks.append((a, b))
-    got = batch_extend_pallas(tasks, stop_rows=600)
+    tasks = _extension_tasks(np.random.default_rng(41), 20, hi=1100)
+    got = batch_extend(tasks, stop_rows=600, executor=host_executor)
     for idx, (a, b) in enumerate(tasks):
         i, j, _score, err, nid, gap = band_dp_native(
             a, b, 60, True, MATCH, MISMATCH, OPEN, EXTEND, 600
@@ -123,33 +95,80 @@ def test_batch_extend_pallas_parity() -> None:
         assert tuple(got[idx]) == (i, j, err, nid, gap)
 
 
-def test_batch_extend_pallas_oversize_falls_back_to_host() -> None:
-    """Tasks longer than the largest fixed m_cols bucket never mint a
-    fresh Mosaic shape: they run on the bit-identical host kernel, in
-    their original task positions, alongside normal device-bucket
-    lanes."""
+def test_batch_extend_wrapper_launch_layout() -> None:
+    """One launch per call: tasks longest first, task count and byte
+    buffers padded to powers of two, padding tasks empty, and results
+    returned in the caller's order."""
     from pyani_plus_tpu.ops.extend import extend_errors
-    from pyani_plus_tpu.ops.extend_pallas import (
-        M_COLS_BUCKETS,
-        batch_extend_pallas,
-    )
+    from pyani_plus_tpu.ops.extend_gpu import batch_extend, host_executor
+
+    tasks = _extension_tasks(np.random.default_rng(3), 37)
+    launches = []
+
+    def recording(meta, a, b, stop_rows):
+        launches.append((meta.copy(), a.size, b.size, stop_rows))
+        return host_executor(meta, a, b, stop_rows)
+
+    got = batch_extend(tasks, stop_rows=600, executor=recording)
+    assert len(launches) == 1
+    meta, a_size, b_size, stop_rows = launches[0]
+    assert stop_rows == 600
+    assert meta.shape == (64, 4)
+    for size in (a_size, b_size):
+        assert size & (size - 1) == 0
+    m = meta[:37, 1]
+    assert list(m) == sorted((t[0].size for t in tasks), reverse=True)
+    assert (meta[37:, 1] == 0).all() and (meta[37:, 3] == 0).all()
+    assert list(meta[1:37, 0]) == list(np.cumsum(m)[:-1])
+    assert got == [extend_errors(a, b) for a, b in tasks]
+
+
+def test_batch_extend_wrapper_routes_misfits_to_host() -> None:
+    """Tasks past MAX_ROWS (packed-key headroom), with an empty tail, or
+    with both tails shorter than the band run on the host kernel in
+    their original task positions; the rest share one launch."""
+    from pyani_plus_tpu.ops.extend import extend_errors
+    from pyani_plus_tpu.ops.extend_gpu import MAX_ROWS, batch_extend, host_executor
 
     rng = np.random.default_rng(7)
-    big = M_COLS_BUCKETS[-1] + 64
+    big = MAX_ROWS + 64
     tasks = []
-    for m, n in ((big, 400), (300, 280), (big + 32, big), (256, 300)):
+    for m, n in ((big, 400), (300, 280), (40, 30), (0, 50), (256, 300)):
         a = rng.integers(0, 4, m).astype(np.uint8)
         b = a[: min(m, n)].copy()
         mut = rng.random(b.size) < 0.05
         b[mut] = (b[mut] + 1) % 4
         tasks.append((a, b[:n] if n <= b.size else b))
-    got = batch_extend_pallas(tasks, stop_rows=600)
+    seen = []
+
+    def recording(meta, a, b, stop_rows):
+        seen.extend(int(v) for v in meta[:, 1] if v)
+        return host_executor(meta, a, b, stop_rows)
+
+    got = batch_extend(tasks, stop_rows=600, executor=recording)
+    assert seen == [300, 256]
     for idx, (a, b) in enumerate(tasks):
         assert tuple(got[idx]) == tuple(extend_errors(a, b)), idx
 
 
+def _force_batched_extensions(monkeypatch) -> None:
+    """Send every ANIm extension batch through the GPU kernel's wrapper,
+    with the host executor standing in for the launch."""
+    from functools import partial
+
+    from pyani_plus_tpu.methods import anim
+    from pyani_plus_tpu.ops.extend_gpu import host_executor
+
+    monkeypatch.setattr(
+        anim,
+        "_run_extensions",
+        partial(anim._run_extensions, executor=host_executor),
+    )
+
+
 def test_anim_device_extension_pipeline_parity(monkeypatch) -> None:
-    """Forcing the device extension path leaves ANIm results unchanged."""
+    """Routing extensions through the batched wrapper leaves ANIm results
+    unchanged (reference viral genomes)."""
     from pathlib import Path
 
     import pytest
@@ -163,9 +182,40 @@ def test_anim_device_extension_pipeline_parity(monkeypatch) -> None:
     fastas = sorted(d.glob("*.f*"))[:2]
     q, s = (load_genome(p) for p in fastas)
     host = compute_pair(q, s)
-    monkeypatch.setenv("PYANI_TPU_EXTEND_BATCH_MIN", "1")
-    dev = compute_pair(q, s)
-    assert host == dev
+    _force_batched_extensions(monkeypatch)
+    assert compute_pair(q, s) == host
+
+
+def test_anim_batched_extension_pipeline_parity_synthetic(monkeypatch) -> None:
+    """The same on seeded genomes: ~90% ANI with indels, two contigs."""
+    from pathlib import Path
+
+    from pyani_plus_tpu.genomes import Genome, SequenceRecord
+    from pyani_plus_tpu.methods import anim
+    from pyani_plus_tpu.methods.anim import compute_pair
+
+    rng = np.random.default_rng(11)
+    ref = rng.integers(0, 4, 30000).astype(np.uint8)
+    qry = ref.copy()
+    qry[rng.random(qry.size) < 0.08] = rng.integers(0, 4)
+    qry = np.delete(qry, rng.choice(qry.size, 60, replace=False))
+    calls = []
+    production = anim._run_extensions
+
+    def genome(name, codes):
+        recs = [SequenceRecord(f"{name}{i}".encode(), c) for i, c in enumerate(np.split(codes, [12000]))]
+        return Genome(md5=name * 32, path=Path(name), records=recs)
+
+    q, s = genome("a", qry), genome("b", ref)
+    host = compute_pair(q, s)
+    _force_batched_extensions(monkeypatch)
+    batched = anim._run_extensions
+    monkeypatch.setattr(
+        anim, "_run_extensions", lambda t, **kw: calls.append(len(t)) or batched(t, **kw)
+    )
+    assert compute_pair(q, s) == host
+    assert host["identity"] is not None and sum(calls) > 4
+    assert production is not batched
 
 
 def test_iupac_letter_equality_identities() -> None:

@@ -26,9 +26,6 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 from pyani_plus_tpu.genomes import decode_sequence, load_genome
